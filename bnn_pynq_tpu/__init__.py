@@ -1,19 +1,21 @@
-"""bnn_pynq_tpu — a TPU-native binarized/quantized neural-network engine.
+"""bnn_pynq_tpu — a binarized/quantized neural-network inference engine.
 
 A from-scratch rebuild of the capabilities of cbrl/BNN-PYNQ (the FINN-style
-binarized-NN deployment stack, see SURVEY.md) designed TPU-first:
+binarized-NN deployment stack, see SURVEY.md), running on JAX/XLA (an
+NVIDIA GPU in production; the package name records where it was first
+built, see README):
 
-- W1A1 / W1A2 / W2A2 fully-connected and convolutional networks executed as
-  bit-packed XNOR+popcount (VPU route) or decode+int8-dot (MXU route) Pallas
-  kernels with MultiThreshold activations fused into the matmul epilogue.
+- W1A1 / W1A2 / W2A2 fully-connected and convolutional networks executed
+  as int8 GEMMs/convolutions with int32 accumulation and MultiThreshold
+  activations fused into the epilogue by XLA.
 - An offline parameter compiler ("finnthesizer" analogue,
   SURVEY.md C14) that folds batch-norm into integer thresholds and packs
-  weights into int32 words (32 binary values per lane word).
+  weights into uint32 words (32 binary values per word).
 - A JAX/optax training stack with straight-through-estimator binarization
-  (SURVEY.md C13).
+  (SURVEY.md C13; needs the optional `flax` extra).
 - A bit-exact pure-jnp golden model used as the software twin for testing
   (the analogue of the reference's rawhls CPU runtime, SURVEY.md §4.1).
-- Multi-chip scaling via jax.sharding meshes: tensor-sharded packed weights
+- Multi-device scaling via jax.sharding meshes: tensor-sharded weights
   + data-parallel batch (SURVEY.md §2 parallelism table).
 
 Integer conventions (defined here once, used everywhere):
@@ -28,8 +30,7 @@ Integer conventions (defined here once, used everywhere):
   [j*bits, (j+1)*bits)).
 - Binary dot product of K packed pairs: dot = K - 2*popcount(a XOR w).
   K is always padded to a multiple of the word capacity; pad bits are 0 in
-  both operands so each pad position contributes +1 to the padded dot, and
-  kernels subtract the static pad count.
+  both operands so each pad position contributes +1 to the padded dot.
 """
 
 __version__ = "0.1.0"

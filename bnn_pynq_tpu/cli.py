@@ -8,7 +8,7 @@ scripts (SURVEY.md C15 «make-hw.sh/make-sw.sh» and the notebook drivers):
     python -m bnn_pynq_tpu.cli info    [network]
 
 Hardware builds (Vivado synthesis) have no analogue: jit compilation
-replaces them and is cached by XLA.
+replaces them and is kept in a persistent cache (utils/compile_cache.py).
 """
 
 from __future__ import annotations
@@ -168,7 +168,7 @@ def cmd_gate_all(args):
     """One-command Δ≤0.1% gate over every BASELINE.md workload:
     ingest-if-present → train-or-load → eval --gate per row. With no real
     data it prints 'skipped' per row and exits 0; with any real dataset
-    present it produces the Δ row unattended (VERDICT r2 ask #6). See
+    present it produces the Δ row unattended. See
     README 'Real datasets' for exactly which files to drop where."""
     from bnn_pynq_tpu.models import get_config
     from bnn_pynq_tpu.runtime.engine import InferenceEngine
@@ -296,6 +296,8 @@ def cmd_info(args):
 
 
 def main(argv=None):
+    from bnn_pynq_tpu.runtime.engine import ROUTES, RUNTIMES
+
     p = argparse.ArgumentParser(prog="bnn_pynq_tpu")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -317,16 +319,16 @@ def main(argv=None):
     cl = sub.add_parser("classify", help="classify images (npy file)")
     cl.add_argument("artifact")
     cl.add_argument("images")
-    cl.add_argument("--runtime", default="auto")
-    cl.add_argument("--route", default="s2d")
+    cl.add_argument("--runtime", default="device", choices=RUNTIMES)
+    cl.add_argument("--route", default="s2d", choices=ROUTES)
     cl.set_defaults(fn=cmd_classify)
 
     b = sub.add_parser("bench", help="throughput benchmark")
     b.add_argument("artifact")
     b.add_argument("--batch", type=int, default=1024)
     b.add_argument("--iters", type=int, default=20)
-    b.add_argument("--runtime", default="auto")
-    b.add_argument("--route", default="s2d")
+    b.add_argument("--runtime", default="device", choices=RUNTIMES)
+    b.add_argument("--route", default="s2d", choices=ROUTES)
     b.add_argument("--classify", action="store_true",
                    help="time the device-argmax classify path")
     b.set_defaults(fn=cmd_bench)
@@ -334,8 +336,8 @@ def main(argv=None):
     e = sub.add_parser("eval", help="test-set accuracy of an artifact")
     e.add_argument("artifact")
     e.add_argument("--batch", type=int, default=1024)
-    e.add_argument("--runtime", default="auto")
-    e.add_argument("--route", default="s2d")
+    e.add_argument("--runtime", default="device", choices=RUNTIMES)
+    e.add_argument("--route", default="s2d", choices=ROUTES)
     e.add_argument("--gate", action="store_true",
                    help="fail (exit 1) if real-data accuracy drops >0.1% "
                         "below the reference table")
@@ -361,22 +363,22 @@ def main(argv=None):
                     help="override preset epoch counts (0 = preset)")
     ga.add_argument("--batch", type=int, default=1024)
     ga.add_argument("--seed", type=int, default=0)
-    ga.add_argument("--runtime", default="auto")
-    ga.add_argument("--route", default="s2d")
+    ga.add_argument("--runtime", default="device", choices=RUNTIMES)
+    ga.add_argument("--route", default="s2d", choices=ROUTES)
     ga.set_defaults(fn=cmd_gate_all)
 
     s = sub.add_parser("serve", help="HTTP classification server")
     s.add_argument("artifact")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8476)
-    s.add_argument("--runtime", default="auto")
-    s.add_argument("--route", default="s2d")
+    s.add_argument("--runtime", default="device", choices=RUNTIMES)
+    s.add_argument("--route", default="s2d", choices=ROUTES)
     s.add_argument("--max-batch", type=int, default=256)
     s.add_argument("--max-wait-ms", type=float, default=3.0)
     s.add_argument("--buckets", default="",
                    help="comma-separated batch buckets (granular buckets "
-                   "bound low-load latency — docs/latency.md); default: "
-                   "the engine's standard set capped at max-batch")
+                   "bound low-load latency); default: the engine's "
+                   "standard set capped at max-batch")
     s.add_argument("--no-warmup", action="store_true",
                    help="skip compiling every bucket before serving "
                    "(first requests then pay the jit compile)")
@@ -394,6 +396,8 @@ def main(argv=None):
     i.set_defaults(fn=cmd_info)
 
     args = p.parse_args(argv)
+    from bnn_pynq_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     args.fn(args)
 
 

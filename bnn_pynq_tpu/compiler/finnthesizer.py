@@ -1,4 +1,4 @@
-"""The parameter compiler — TPU-native "finnthesizer" (SURVEY.md C14
+"""The parameter compiler — the "finnthesizer" of this stack (SURVEY.md C14
 «bnn/src/training/finnthesizer.py»).
 
 Takes trained float params (flax params + batch_stats from
@@ -33,10 +33,9 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from bnn_pynq_tpu.models.config import NetworkConfig, PoolSpec
+from bnn_pynq_tpu.models.config import BN_EPS, NetworkConfig, PoolSpec
 from bnn_pynq_tpu.ops import packing
 from bnn_pynq_tpu.ops.thresholds import THR_ALWAYS, THR_NEVER
-from bnn_pynq_tpu.train.model import BN_EPS
 
 
 @dataclass

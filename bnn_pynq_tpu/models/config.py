@@ -2,9 +2,9 @@
 `config.h` folding headers (SURVEY.md C9 «bnn/src/network/<net>/hw/config.h»
 and §5.6 config tiers).
 
-Where the FPGA config captured per-layer folding (SIMD/PE/WMEM/TMEM), the
-TPU version captures the topology and bit widths; folding is replaced by
-Pallas grid/block parameters chosen at kernel level.
+Where the FPGA config captured per-layer folding (SIMD/PE/WMEM/TMEM), this
+version captures the topology and bit widths; folding has no analogue here,
+XLA picks the GEMM tiling.
 
 Topologies (SURVEY.md C9 «bnn/src/network/…/hw/top.cpp», FINN paper):
 - SFC: 784-256-256-256-10 binary MLP (MNIST, bipolar input).
@@ -19,6 +19,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Tuple, Union
+
+# Batch-norm epsilon of the reference training stack (Lasagne
+# BatchNormLayer default). The trainer and the threshold folding
+# (compiler/finnthesizer.py) must agree on it; it lives here so the
+# inference path never imports the training stack.
+BN_EPS = 1e-4
 
 
 @dataclass(frozen=True)
@@ -56,8 +62,8 @@ class NetworkConfig:
     def bits(self) -> int:
         """Packing width shared by weights and activations of the packed
         layers: 1 only for W1A1; otherwise 2 (±1 weights of W1A2 layers are
-        stored as 2-bit codes so both operands share one decode path —
-        see ops/matmul.py docstring)."""
+        stored as 2-bit codes so both operands share one packing — see
+        ops/packing.py)."""
         return 1 if (self.wbits == 1 and self.abits == 1) else 2
 
     @property

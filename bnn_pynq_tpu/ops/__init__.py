@@ -1,1 +1,1 @@
-"""Compute ops: bit packing, golden references, Pallas kernels."""
+"""Compute ops: bit packing, thresholds, conv helpers, golden references."""

@@ -1,16 +1,14 @@
-"""Convolution path: sliding-window (im2col) + packed matmul + maxpool.
+"""Convolution helpers: sliding-window (im2col) and maxpool.
 
-TPU-native rebuild of the reference's streaming conv stack (SURVEY.md
-C2 `ConvolutionInputGenerator` «bnn/src/library/hls/slidingwindow.h»,
-C3 `ConvLayer_Batch` «bnn/src/library/hls/convlayer.h», C6
+Rebuild of the reference's streaming conv stack (SURVEY.md C2
+`ConvolutionInputGenerator` «bnn/src/library/hls/slidingwindow.h», C3
+`ConvLayer_Batch` «bnn/src/library/hls/convlayer.h», C6
 `StreamingMaxPool_Batch` «bnn/src/library/hls/maxpool.h»).
 
 Where the FPGA streams K×K×C patches out of a ring buffer into the MVTU,
-the TPU version materializes patches with kh*kw static strided slices
-(XLA fuses these into the consumer — no float, no giant im2col buffer in
-HBM when the whole layer is jitted together), packs them along K, and
-reuses the packed-matmul MVTU kernel. Patch order along K is
-(ki, kj, c): patch element index = (ki*kw + kj)*C + c, matching a plain
+this version materializes patches with kh*kw static strided slices (XLA
+fuses these into the consumer) and feeds an int8 dot. Patch order along K
+is (ki, kj, c): patch element index = (ki*kw + kj)*C + c, matching a plain
 reshape of HWIO weights — the parameter compiler relies on this.
 """
 
@@ -18,9 +16,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-
-from bnn_pynq_tpu.ops import packing
-from bnn_pynq_tpu.ops.matmul import packed_matmul_padded
 
 
 def sliding_window(x, kh: int, kw: int, stride: int = 1):
@@ -50,47 +45,6 @@ def conv_weight_matrix(w_hwio):
     same (ki, kj, c) order that `sliding_window` emits."""
     kh, kw, c, o = w_hwio.shape
     return jnp.asarray(w_hwio).reshape(kh * kw * c, o)
-
-
-def conv2d_packed(x_codes, w_packed, thr=None, *, kernel: int, stride: int = 1,
-                  bits: int = 1, route: str = "mxu", block_m: int = 256,
-                  interpret=None):
-    """Quantized conv as sliding-window + packed MVTU matmul.
-
-    x_codes: int8 codes [B, H, W, C] ({0,1} for bits=1, {0..3} for bits=2).
-    w_packed: uint32 [Kw, O] packed along K = kernel*kernel*C (order ki,kj,c).
-    thr: int32 [nthr, O] or None (None → int32 accumulators out).
-    Returns [B, OH, OW, O] codes (int8) or accumulators (int32).
-    """
-    b, h, w, c = x_codes.shape
-    k = kernel * kernel * c
-    per_word = packing.WORD_BITS // bits
-    if c % per_word == 0:
-        # Pack along C FIRST, then window the packed words: the im2col
-        # duplication (kernel² copies) then happens on 32×-compressed
-        # words instead of int8 codes, cutting its HBM traffic 8×/16×.
-        # Valid because words never straddle a window position when
-        # C % per_word == 0, so the packed patch order equals packing the
-        # (ki,kj,c)-ordered patches directly.
-        if bits == 1:
-            xp = packing.pack_bits(x_codes, axis=-1)
-        else:
-            xp = packing.pack_codes2(x_codes, axis=-1)
-        patches = sliding_window(xp, kernel, kernel, stride)
-        oh, ow = patches.shape[1], patches.shape[2]
-        a_packed = patches.reshape(b * oh * ow, patches.shape[-1])
-    else:
-        patches = sliding_window(x_codes, kernel, kernel, stride)
-        oh, ow = patches.shape[1], patches.shape[2]
-        flat = patches.reshape(b * oh * ow, k)
-        if bits == 1:
-            a_packed = packing.pack_bits(flat, axis=-1)
-        else:
-            a_packed = packing.pack_codes2(flat, axis=-1)
-    out = packed_matmul_padded(a_packed, w_packed, thr, k=k, bits=bits,
-                               route=route, block_m=block_m,
-                               interpret=interpret)
-    return out.reshape(b, oh, ow, out.shape[-1])
 
 
 def maxpool2d(codes, window: int = 2):

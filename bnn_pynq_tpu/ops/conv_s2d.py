@@ -1,18 +1,15 @@
-"""Space-to-depth conv reformulation — the TPU-shape fix for CNV's convs.
+"""Space-to-depth conv reformulation of CNV's narrow convs.
 
-Motivation (measured, perf_results/layerprof.jsonl + conv_probe.jsonl):
-the chip's int8 dot rate is strongly shape-dependent. CNV's native
-im2col shapes are terrible for the MXU — conv1 (K=27, N=64) runs at
-~2.8 TOPS and conv2 (K=576, N=64) at ~48 TOPS while the late convs
-(K≥1152, N=256) hit 192-242 TOPS. The reference hardware had the dual
-problem (folding small matrices onto PE×SIMD arrays, SURVEY.md C1/C9);
-its fix was per-layer folding configs, ours is per-layer reshaping.
+CNV's native im2col dot shapes are narrow: conv1 contracts K=27 into
+N=64, conv2 K=576 into N=64. The reference hardware had the dual problem
+(folding small matrices onto PE×SIMD arrays, SURVEY.md C1/C9); its fix
+was per-layer folding configs, this one is per-layer reshaping.
 
 Trick: view the image in s×s blocks. A K×K stride-1 VALID conv becomes
 a 2×2-superblock conv producing s² output phases per block — one dot
 with contraction (2s)²C and width s²N instead of K²C × N:
 
-    conv1 (s=2):  K 27   → 48,   N 64 → 256
+    conv1 (s=4):  K 27   → 192,  N 64 → 1024
     conv2 (s=2):  K 576  → 1024, N 64 → 256
     conv3/4 (s=2): K 576/1152 → 1024/2048, N 128 → 512
 
@@ -20,29 +17,25 @@ Three structural wins beyond the dot shape:
 - **phase chaining**: a s-layer's phase output [B, nb, nb, s²N] IS the
   next s-layer's blocked input (`blocked_weights` consumes it via a
   plain 2×2 window) — consecutive s2d convs chain with no relayout at
-  all, and a s=4 layer feeds a s=2 layer through ONE transpose
-  (`reblock`) instead of a dephase + to_blocked pair. (A
-  sliding_window(2s,2s,stride=s) formulation straight from spatial
-  layout was measured and rejected: (2s)² strided slices compile
-  pathologically and run slower than to_blocked + 2×2 window.)
+  all, and a s=4 layer can feed a s=2 layer through ONE transpose
+  (`reblock`) instead of a dephase + to_blocked pair;
 - a following 2×2 maxpool collapses to a max over the s=2 phase dims
   (pool windows coincide exactly with blocks): the reference's binary
-  OR-maxpool (SURVEY.md C6) becomes a 4-way VPU max and re-spatializes
-  the activation for free;
+  OR-maxpool (SURVEY.md C6) becomes a 4-way max and re-spatializes the
+  activation for free;
 - patch duplication drops from K²=9× to (2s/s)²=4×.
 
-MAC overcompute is (2s)²/K² (1.78× at s=2, K=3); the measured rate gain
-is 3-10× on the narrow layers. Everything is integer-exact: the phase
-weight matrix is the original kernel zero-padded into phase-aligned
-slots, so accumulators see the same products plus zeros. Bit-exactness
-vs the im2col route is tested in tests/test_conv_s2d.py.
+MAC overcompute is (2s)²/K² (1.78× at s=2, K=3). Everything is
+integer-exact: the phase weight matrix is the original kernel
+zero-padded into phase-aligned slots, so accumulators see the same
+products plus zeros. Bit-exactness vs the im2col route is tested in
+tests/test_conv_s2d.py.
 
-Garbage-phase discipline (the pitch trick of ops/conv_stack.py, here in
-block form): spatial extents are padded up to whole blocks with zeros
-and the last block may contain phase rows ≥ OH; a chained conv's valid
-outputs only ever read valid inputs (output spatial r needs inputs
-≤ r+K-1 < OH_prev), so block garbage propagates only into block garbage
-and is sliced exactly once, at de-phase/pool time.
+Garbage-phase discipline: spatial extents are padded up to whole blocks
+with zeros and the last block may contain phase rows ≥ OH; a chained
+conv's valid outputs only ever read valid inputs (output spatial r needs
+inputs ≤ r+K-1 < OH_prev), so block garbage propagates only into block
+garbage and is sliced exactly once, at de-phase/pool time.
 """
 
 from __future__ import annotations
@@ -86,40 +79,24 @@ def blocked_weights(w_hwio, s: int):
     return wp.reshape(4 * s * s * c, s * s * n)
 
 
-def _phase_dot(patches, wmat, thr, s: int, n: int, acc_dtype=None,
-               out_dtype=None):
-    """out_dtype: preferred_element_type of the dot (the MXU accumulator-
-    drain dtype). int16 is exact whenever Σ|a·w| < 32767 over the real
-    kernel taps — that bound also bounds every partial sum, so
-    intermediate wraparound cannot occur — and measured 28% faster at
-    conv1's drain-bound (K=192, N=1024) shape (r4_conv1.jsonl: 1.156 vs
-    1.615 ms i32 same-window); it LOSES at the MAC-bound K=1024 shape
-    (1.114 vs 0.962), so callers gate it on the drain regime."""
+def _phase_dot(patches, wmat, thr, s: int, n: int):
     b, gh, gw, kw = patches.shape
-    a2 = patches.reshape(b * gh * gw, kw)
-    if acc_dtype is not None:
-        a2 = a2.astype(acc_dtype)
-        wmat = wmat.astype(acc_dtype)
     acc = jax.lax.dot_general(
-        a2, wmat,
+        patches.reshape(b * gh * gw, kw), wmat,
         dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=out_dtype or jnp.int32)
+        preferred_element_type=jnp.int32)
     acc = acc.reshape(b, gh, gw, s * s * n)
     if thr is None:
-        return acc.astype(jnp.int32)
+        return acc
     return multithreshold(acc, jnp.tile(thr, (1, s * s)))
 
 
-def _phase_dot_shifted(vals, wmat, thr, s: int, n: int, out_dtype=None):
+def _phase_dot_shifted(vals, wmat, thr, s: int, n: int):
     """The phase dot as a sum of FOUR shifted GEMMs instead of one
     concat+dot: each 2×2-window block position (bi,bj) contributes
     vals[:, bi:bi+gh, bj:bj+gw, :] @ wmat_rows(bi,bj) — the slices are
     views XLA can fuse into the dot operand read, so the 4× patch
-    duplication is never materialized. Motivation (r4 probe,
-    perf_results/r4_conv1.jsonl tag r4-chainfusion): a fused dot CHAIN
-    runs each dot ~4× faster than the same dot standalone (185 vs 46
-    G elems/s at M=262k K=N=256) — the concat between chained phase
-    dots is what breaks that fusion. Bit-exact with _phase_dot: same
+    duplication is never materialized. Bit-exact with _phase_dot: same
     products, summed in a different order of int32 adds (exact)."""
     b, nbh, nbw, sc = vals.shape
     gh, gw = nbh - 1, nbw - 1
@@ -129,15 +106,13 @@ def _phase_dot_shifted(vals, wmat, thr, s: int, n: int, out_dtype=None):
         for bj in range(2):
             x = vals[:, bi:bi + gh, bj:bj + gw, :].reshape(
                 b * gh * gw, sc)
-            xw = x
-            w = w4[bi, bj]
             part = jax.lax.dot_general(
-                xw, w, dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=out_dtype or jnp.int32)
+                x, w4[bi, bj], dimension_numbers=(((1,), (0,)), ((), ())),
+                preferred_element_type=jnp.int32)
             acc = part if acc is None else acc + part
     acc = acc.reshape(b, gh, gw, s * s * n)
     if thr is None:
-        return acc.astype(jnp.int32)
+        return acc
     return multithreshold(acc, jnp.tile(thr, (1, s * s)))
 
 
@@ -172,16 +147,11 @@ def reblock(ba: BlockedAct, s_to: int):
     return BlockedAct(x, s_to, ba.oh, ba.ow)
 
 
-def conv_s2d_blocked(act, w_hwio, thr, *, s: int, acc_dtype=None,
-                     out_dtype=None, form: str = "concat"):
+def conv_s2d_blocked(act, w_hwio, thr, *, s: int, form: str = "concat"):
     """One K×K stride-1 VALID conv in phase space.
 
     act: int8 LEVELS — spatial [B, H, W, C], or a BlockedAct whose
       `codes` field already holds levels (caller decodes codes→levels).
-    acc_dtype: cast dot operands to this dtype first (e.g. jnp.int4 —
-      exact for |levels| ≤ 7, measured ~20% faster at the conv2 shape).
-    out_dtype: accumulator-drain dtype (see _phase_dot; int16 for
-      drain-bound layers with Σ|a·w| < 32767).
     form: 'concat' (2×2 patch concat + one dot) or 'shifted' (sum of 4
       sliced GEMMs, no patch materialization — see _phase_dot_shifted).
     Returns BlockedAct (codes when thr given, int32 acc when thr=None).
@@ -203,12 +173,10 @@ def conv_s2d_blocked(act, w_hwio, thr, *, s: int, acc_dtype=None,
         vals = to_blocked(act, s, nbh, nbw)
     wmat = blocked_weights(w_hwio, s)
     if form == "shifted":
-        out = _phase_dot_shifted(vals, wmat, thr, s, n,
-                                 out_dtype=out_dtype)
+        out = _phase_dot_shifted(vals, wmat, thr, s, n)
     else:
         patches = sliding_window(vals, 2, 2, 1)
-        out = _phase_dot(patches, wmat, thr, s, n, acc_dtype=acc_dtype,
-                         out_dtype=out_dtype)
+        out = _phase_dot(patches, wmat, thr, s, n)
     return BlockedAct(out, s, oh, ow)
 
 
@@ -221,11 +189,9 @@ def phase_maxpool(ba: BlockedAct):
         (ba.s, ba.oh, ba.ow)
     b, nbh, nbw, sn = ba.codes.shape
     n = sn // 4
-    # statically unrolled maximum over the four slot lane-groups — the
-    # reshape-to-[..., 4, n] + max(axis=3) form is 4.2× slower on TPU
-    # (2.82 ms vs 0.68 ms standalone at conv2's shape, r3 probe): the
-    # small middle dim wrecks the reduce layout, same pathology as the
-    # multithreshold broadcast (ops/thresholds.py).
+    # statically unrolled maximum over the four slot groups (the
+    # reshape-to-[..., 4, n] + max(axis=3) form measured 4.2× slower on
+    # the earlier accelerator; not re-measured on the GPU)
     out = ba.codes[..., 0:n]
     for i in range(1, 4):
         out = jnp.maximum(out, ba.codes[..., i * n:(i + 1) * n])
@@ -261,12 +227,11 @@ def pick_s2d_block(c_in: int, n_out: int, oh: int, ow: int,
                    kernel: int, stride: int):
     """Per-layer policy: return the s2d block size, or 0 for im2col.
 
-    Measured basis (perf_results/{layerprof,conv_probe}.jsonl, v5e):
-    dots with K ≥ ~512 AND N ≥ ~256 run near the big-matmul rate;
-    narrower ones fall off a cliff. s2d multiplies K by (2s)²/K² and N
-    by s² at the same MAC overhead, so it pays exactly when the native
-    shape is narrow (early convs) and stops paying once N ≥ 256 (late
-    convs, already ≥190 TOPS) or the grid is too small to amortize."""
+    s2d pays when the native dot shape is narrow (early convs) and stops
+    paying once N ≥ 256 or the grid is too small to amortize. The
+    thresholds below were chosen by measurement on the earlier accelerator
+    (README, "Origin") and have not been re-derived on the GPU (ROADMAP).
+    """
     if stride != 1 or kernel > 3 or min(oh, ow) < 8 or n_out > 128:
         return 0
     return 4 if c_in < 32 else 2

@@ -1,11 +1,11 @@
 """Bit packing / unpacking for binarized and 2-bit quantized tensors.
 
-TPU-native equivalent of the reference's weight/activation packing
-(SURVEY.md C5 `BinaryWeights`/`FixedPointWeights` «finn-hlslib/weights.hpp»
-and C10 `binarizeAndPack` «bnn/src/library/host/foldedmv-offload.cpp»).
-Instead of the FPGA's [PE][WMEM] BRAM word layout, values are packed 32-per-
-uint32 along the contraction (K) axis so that a packed word maps onto one
-int32 lane element of a TPU vector register.
+Equivalent of the reference's weight/activation packing (SURVEY.md C5
+`BinaryWeights`/`FixedPointWeights` «finn-hlslib/weights.hpp» and C10
+`binarizeAndPack` «bnn/src/library/host/foldedmv-offload.cpp»). Instead of
+the FPGA's [PE][WMEM] BRAM word layout, values are packed 32-per-uint32
+along the contraction (K) axis: the artifact storage format and the
+host→device input transport for bipolar networks.
 
 Conventions (see package docstring):
 - 1-bit: value v ∈ {-1,+1}, bit b = (v > 0); word bit j holds element 32w+j.
@@ -13,7 +13,7 @@ Conventions (see package docstring):
   code j at bits [2j, 2j+2).
 - Padding: K is padded up to a multiple of the word capacity with zero bits
   (i.e. value -1 for 1-bit, code 0 for 2-bit). Consumers must correct for
-  pad contributions (kernels subtract the static pad count).
+  pad contributions (a packed dot subtracts the static pad count).
 
 All functions are pure jnp and jit-safe; numpy arrays work too (jnp
 accepts them), and a `np_` variant is provided for host-side packing used

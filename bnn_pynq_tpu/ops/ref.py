@@ -3,18 +3,17 @@
 Plays the role of the reference's rawhls CPU runtime (SURVEY.md §4.1
 «bnn/src/library/host/rawhls-offload.cpp», built by make-sw.sh): a simple,
 obviously-correct implementation of every compute op, used to validate the
-Pallas TPU kernels bit-exactly and to run engines in `interpret` mode.
+production path (models/network.forward_xla) bit-exactly and to run
+engines with runtime='ref'.
 
 All arithmetic is integer-exact: int8 operands with int32 accumulation via
-``preferred_element_type`` (exact on MXU and CPU alike).
+``preferred_element_type`` (exact on any backend).
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-
-from bnn_pynq_tpu.ops.thresholds import multithreshold
 
 
 def int_matmul_ref(a, w):
@@ -25,33 +24,6 @@ def int_matmul_ref(a, w):
         dimension_numbers=(((1,), (0,)), ((), ())),
         preferred_element_type=jnp.int32,
     )
-
-
-def int_matmul_wide_ref(a, w):
-    """Exact integer matmul for operands that may exceed int8 (e.g. int8
-    inputs × ±1 weights is fine, but int32 accumulator re-matmuls are not).
-    Uses int32 math on the VPU — slow, test-only."""
-    a = jnp.asarray(a, dtype=jnp.int32)
-    w = jnp.asarray(w, dtype=jnp.int32)
-    return jax.lax.dot_general(
-        a, w, dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-
-
-def binary_matmul_ref(a_pm1, w_pm1):
-    """Binary (±1) matmul reference: int32 exact dot of ±1 operands."""
-    return int_matmul_ref(a_pm1, w_pm1)
-
-
-def binary_layer_ref(a_vals, w_vals, thr):
-    """Dense quantized layer: int levels [M,K] · int levels [K,N] → codes.
-
-    This is the golden model of the fused MVTU (matmul + MultiThreshold
-    epilogue, SURVEY.md C1+C4).
-    """
-    acc = int_matmul_ref(a_vals, w_vals)
-    return multithreshold(acc, thr)
 
 
 def conv2d_int_ref(x_vals, w_vals, stride: int = 1):

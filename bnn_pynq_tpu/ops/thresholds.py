@@ -1,6 +1,6 @@
 """MultiThreshold activation — integer threshold compare.
 
-TPU-native equivalent of the reference's `ThresholdsActivation`
+Equivalent of the reference's `ThresholdsActivation`
 (SURVEY.md C4 «bnn/src/library/hls/activations.hpp»): per-output-channel
 integer thresholds implement batch-norm + sign/quantize with zero float
 math at inference.
@@ -42,10 +42,9 @@ def multithreshold(acc, thr):
     acc = jnp.asarray(acc)
     thr = jnp.asarray(thr)
     # Statically unrolled over the (≤3) thresholds as plain [..., N]
-    # compares. The obvious broadcast form (acc[..., None, :] >= thr →
-    # reduce over a [..., nthr, N] intermediate) is 3.3× slower on TPU
-    # at nthr=3 (measured r3: 4.64 ms vs 1.39 ms fused into a conv1-
-    # class dot) — the size-3 middle dim wrecks the epilogue layout.
+    # compares, which XLA fuses into the GEMM epilogue. (The broadcast
+    # form over a [..., nthr, N] intermediate measured 3.3× slower on the
+    # earlier accelerator; not re-measured on the GPU.)
     code = (acc >= thr[0]).astype(jnp.int8)
     for i in range(1, thr.shape[0]):
         code = code + (acc >= thr[i]).astype(jnp.int8)

@@ -1,9 +1,8 @@
 """Scaling-efficiency benchmark harness (BASELINE.md: ≥80% at 2 hosts).
 
 Measures tensor-parallel + data-parallel throughput of a compiled network
-at increasing device counts on whatever devices are available (real TPU
-chips when present; the virtual CPU mesh only validates the harness
-logic). Emits a JSON report of images/s and efficiency vs ideal linear
+at increasing device counts on whatever devices are available (GPUs when
+present; the virtual CPU mesh only validates the harness logic). Emits a JSON report of images/s and efficiency vs ideal linear
 scaling from the 1-device point.
 
     python -m bnn_pynq_tpu.parallel.benchmark --network cnv-w1a1
@@ -51,7 +50,7 @@ def measure_tp_scaling(compiled, device_counts: Optional[List[int]] = None,
         t0 = time.perf_counter()
         outs = [engine._fn(engine.params, engine.out_scale, engine.out_bias,
                            x) for _ in range(iters)]
-        np.asarray(outs[-1])
+        jax.block_until_ready(outs)
         dt = (time.perf_counter() - t0) / iters
         results.append({"devices": nd, "mesh": f"{data}x{model}",
                         "batch": batch, "images_per_sec": batch / dt})

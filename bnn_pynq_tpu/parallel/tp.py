@@ -1,22 +1,26 @@
-"""Tensor-parallel packed inference over a ('data','model') mesh.
+"""Tensor-parallel inference over a ('data','model') mesh.
 
-TPU-native replacement for the reference's PE parallelism (SURVEY.md §2:
-output-channel PE folding → output-channel sharding of the packed weight
-matrices over the ICI mesh axis). Megatron-style column parallelism:
+Replacement for the reference's PE parallelism (SURVEY.md §2: output-
+channel PE folding → output-channel sharding of the weight matrices over
+the mesh's 'model' axis). Megatron-style column parallelism:
 
-- every packed weight matrix [Kw, N] and threshold table [nthr, N] is
-  sharded on N over 'model' (replicated over 'data');
-- each device computes its local output channels with the SAME fused
-  Pallas MVTU kernels as single-chip, then the (tiny, already 1/2-bit
-  coded) activations are all-gathered over 'model' so the next layer sees
-  its full contraction axis;
-- the batch is sharded over 'data' (pure data parallelism — the TPU
-  analogue of the reference's `numReps` batch streaming);
-- the final (classes-wide) layer is replicated: its N is 10/43 and the
-  all-gathered input is already present on every device.
+- every decoded int8 weight matrix [K, N] (conv: HWIO [kh, kw, C, N]) and
+  threshold table [nthr, N] is sharded on N over 'model' (replicated over
+  'data');
+- each device computes its local output channels with the same integer
+  ops as one device (`ref.int_matmul_ref` + `multithreshold`), then the
+  (tiny, 1/2-bit coded) activations are all-gathered over 'model' so the
+  next layer sees its full contraction axis;
+- the batch is sharded over 'data' (pure data parallelism — the analogue
+  of the reference's `numReps` batch streaming);
+- a final dense layer fed by a dense layer is row-sharded instead: each
+  device multiplies the output-channel shard it already holds by the
+  matching weight rows, and one psum of the [B, classes] int32 partials
+  finishes it (no all-gather before it). Any other final layer is
+  replicated and reads the gathered input.
 
-Built with shard_map so the Pallas kernels see explicit local shapes
-(GSPMD cannot partition a pallas_call on its own).
+Built with shard_map so the schedule (one all-gather per layer) is
+explicit. parallel/overlap.py replaces the gathers with rings.
 """
 
 from __future__ import annotations
@@ -25,37 +29,47 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from bnn_pynq_tpu.compiler.finnthesizer import CompiledNetwork
 from bnn_pynq_tpu.models.config import NetworkConfig
-from bnn_pynq_tpu.models.network import make_plan, _input_codes, \
-    _pack_along_last
+from bnn_pynq_tpu.models.network import (_input_codes, decode_params,
+                                         make_plan)
+from bnn_pynq_tpu.parallel.mesh import gather_channels
 from bnn_pynq_tpu.ops import ref
-from bnn_pynq_tpu.ops.conv import conv2d_packed, maxpool2d, sliding_window
-from bnn_pynq_tpu.ops.matmul import packed_matmul_padded
-from bnn_pynq_tpu.ops.thresholds import multithreshold
+from bnn_pynq_tpu.ops.conv import maxpool2d, sliding_window
+from bnn_pynq_tpu.ops.thresholds import codes_to_values, multithreshold
+
+
+def _row_sharded_last(plan) -> bool:
+    """True when the final layer is dense and fed by a dense layer, whose
+    output-channel shard is exactly a row block of the final weights."""
+    compute = [lp for lp in plan if lp.kind != "pool"]
+    return len(compute) > 1 and compute[-1].kind == "dense" \
+        and compute[-2].kind == "dense"
 
 
 def param_specs(config: NetworkConfig):
-    """PartitionSpec pytree matching the engine's params list."""
+    """PartitionSpec pytree matching the decoded params list."""
     plan = make_plan(config)
+    row_last = _row_sharded_last(plan)
     specs = []
     for lp in plan:
         if lp.kind == "pool":
             specs.append({})
-        elif lp.last:
-            # classes-wide final layer: replicated
-            key = "w_int8" if lp.kind == "conv_int8" else "w_packed"
-            specs.append({key: P(None, None)})
+            continue
+        key = "w_hwio" if lp.kind == "conv" else "w_int8"
+        ndim = 4 if key == "w_hwio" else 2
+        if lp.last:
+            specs.append({key: P("model", None) if row_last
+                          else P(*([None] * ndim))})
         else:
-            key = "w_int8" if lp.kind == "conv_int8" else "w_packed"
-            specs.append({key: P(None, "model"), "thr": P(None, "model")})
+            specs.append({key: P(*([None] * (ndim - 1) + ["model"])),
+                          "thr": P(None, "model")})
     return specs
 
 
 def shard_params(params, mesh: Mesh, config: NetworkConfig):
-    """device_put the engine param list with TP shardings."""
+    """device_put the decoded param list with TP shardings."""
     specs = param_specs(config)
     return [
         {k: jax.device_put(v, NamedSharding(mesh, specs[i][k]))
@@ -64,67 +78,64 @@ def shard_params(params, mesh: Mesh, config: NetworkConfig):
     ]
 
 
-def make_tp_forward(config: NetworkConfig, mesh: Mesh, *, route: str = "mxu",
-                    interpret=None):
+def make_tp_forward(config: NetworkConfig, mesh: Mesh):
     """Returns a jitted fn(params, out_scale, out_bias, x) → float logits,
-    sharded batch over 'data' and weights over 'model'."""
+    sharded batch over 'data' and weights over 'model'. `params` is the
+    decoded list (`decode_params`) placed by `shard_params`."""
     plan = make_plan(config)
-    bits = config.bits
+    row_last = _row_sharded_last(plan)
 
     def local_forward(params, out_scale, out_bias, x):
         if config.input_kind == "bipolar":
             act = _input_codes(config, x.reshape(x.shape[0], -1))
         else:
             act = jnp.asarray(x, dtype=jnp.int8)
-        for lp, p in zip(plan, params):
+        for li, (lp, p) in enumerate(zip(plan, params)):
             thr = None if lp.last else p.get("thr")
             if lp.kind == "pool":
                 act = maxpool2d(act, lp.window)
                 continue
-            if lp.kind == "conv_int8":
-                patches = sliding_window(act, lp.kernel, lp.kernel, lp.stride)
-                b, oh, ow, k = patches.shape
-                acc = ref.int_matmul_ref(
-                    patches.reshape(b * oh * ow, k), p["w_int8"])
-                acc = acc.reshape(b, oh, ow, -1)
-                act = acc if lp.last else multithreshold(acc, thr)
-            elif lp.kind == "conv":
-                act = conv2d_packed(act, p["w_packed"], thr,
-                                    kernel=lp.kernel, stride=lp.stride,
-                                    bits=bits, route=route,
-                                    interpret=interpret)
+            # raw int8 image input feeds the first conv; codes elsewhere
+            vals = act if lp.kind == "conv_int8" else \
+                codes_to_values(act, config.abits)
+            if lp.kind == "dense":
+                if vals.ndim > 2:
+                    vals = vals.reshape(vals.shape[0], -1)
+                acc = ref.int_matmul_ref(vals, p["w_int8"])
+                if lp.last and row_last:
+                    acc = jax.lax.psum(acc, "model")
             else:
-                if act.ndim > 2:
-                    act = act.reshape(act.shape[0], -1)
-                a_packed = _pack_along_last(act, bits)
-                act = packed_matmul_padded(a_packed, p["w_packed"], thr,
-                                           k=lp.k, bits=bits, route=route,
-                                           interpret=interpret)
-            if not lp.last:
+                w = p["w_hwio"] if "w_hwio" in p else p["w_int8"]
+                patches = sliding_window(vals, lp.kernel, lp.kernel,
+                                         lp.stride)
+                b, oh, ow, k = patches.shape
+                acc = ref.int_matmul_ref(patches.reshape(b * oh * ow, k),
+                                         w.reshape(k, -1))
+                acc = acc.reshape(b, oh, ow, -1)
+            if lp.last:
+                act = acc
+                break
+            act = multithreshold(acc, thr)
+            if not (row_last and plan[li + 1].last):
                 # gather this layer's output channels from the model axis
-                act = jax.lax.all_gather(act, "model", axis=act.ndim - 1,
-                                         tiled=True)
-        logits = act.astype(jnp.float32) * out_scale[None, :] \
+                act = gather_channels(act)
+        return act.astype(jnp.float32) * out_scale[None, :] \
             + out_bias[None, :]
-        return logits
 
-    p_specs = param_specs(config)
-    fn = shard_map(
+    fn = jax.shard_map(
         local_forward, mesh=mesh,
-        in_specs=(p_specs, P(None), P(None), P("data")),
+        in_specs=(param_specs(config), P(None), P(None), P("data")),
         out_specs=P("data"),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn)
 
 
 def make_gspmd_engine(compiled: CompiledNetwork, mesh: Mesh):
-    """GSPMD tensor+data-parallel inference for the decoded-integer
-    route: forward_xla is pure XLA ops, so instead of shard_map we just
-    annotate shardings (decoded weights/thresholds on output channels
-    over 'model' when divisible, batch over 'data') and let XLA insert
-    the ICI collectives. Complements TPInferenceEngine (which exists
-    because GSPMD cannot partition pallas_call kernels)."""
+    """GSPMD tensor+data-parallel inference: forward_xla is pure XLA ops,
+    so instead of shard_map this only annotates shardings (decoded
+    weights/thresholds on output channels over 'model' when divisible,
+    batch over 'data') and lets XLA insert the collectives."""
     from bnn_pynq_tpu.models.network import (decode_params, forward_xla,
                                              make_plan)
     config = compiled.config
@@ -164,26 +175,20 @@ def make_gspmd_engine(compiled: CompiledNetwork, mesh: Mesh):
 
 
 class TPInferenceEngine:
-    """Multi-chip tensor-parallel engine (same API surface as
+    """Multi-device tensor-parallel engine (same API surface as
     runtime.InferenceEngine.logits/classify for prepared inputs; serving
     hooks — bucketed async launch with device argmax and parameter
-    hot-swap — so BatchingServer can pipeline over it, r5)."""
+    hot-swap — so BatchingServer can pipeline over it)."""
 
     def __init__(self, compiled: CompiledNetwork, mesh: Mesh,
-                 route: str = "mxu", interpret=None,
                  batch_buckets=(1, 16, 64, 256, 1024)):
         self.compiled = compiled
         self.config = compiled.config
         self.mesh = mesh
         self._data_d = mesh.shape.get("data", 1)
         self.batch_buckets = tuple(sorted(batch_buckets))
-        raw = [{k: jnp.asarray(v) for k, v in layer.items()}
-               for layer in compiled.layers]
-        self.params = shard_params(raw, mesh, compiled.config)
-        self.out_scale = jnp.asarray(compiled.out_scale)
-        self.out_bias = jnp.asarray(compiled.out_bias)
-        self._fn = make_tp_forward(compiled.config, mesh, route=route,
-                                   interpret=interpret)
+        self._load_params(compiled)
+        self._fn = make_tp_forward(compiled.config, mesh)
         self._fn_cls = None
         self._data_sh = NamedSharding(mesh, P("data"))
 
@@ -195,13 +200,20 @@ class TPInferenceEngine:
                 compiled.config.abits != self.config.abits:
             raise ValueError("parameter topology mismatch; build a new "
                              "engine for a different network")
+        self._load_params(compiled)
+        return self
+
+    def _load_params(self, compiled: CompiledNetwork):
+        """Decode once, shard-place weights, replicate the scale/bias
+        over the mesh (no array of the engine lives on one device)."""
         raw = [{k: jnp.asarray(v) for k, v in layer.items()}
                for layer in compiled.layers]
-        self.params = shard_params(raw, self.mesh, self.config)
-        self.out_scale = jnp.asarray(compiled.out_scale)
-        self.out_bias = jnp.asarray(compiled.out_bias)
+        self.params = shard_params(decode_params(self.config, raw),
+                                   self.mesh, self.config)
+        rep = NamedSharding(self.mesh, P())
+        self.out_scale = jax.device_put(jnp.asarray(compiled.out_scale), rep)
+        self.out_bias = jax.device_put(jnp.asarray(compiled.out_bias), rep)
         self.compiled = compiled
-        return self
 
     def prepare(self, x):
         from bnn_pynq_tpu.runtime.engine import prepare_host

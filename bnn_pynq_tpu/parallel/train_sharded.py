@@ -1,10 +1,10 @@
 """Sharded (dp × tp) training step.
 
-Training is a float flax graph (no Pallas), so GSPMD partitions it: we
-annotate parameter shardings (quantized kernels and the following BN
-vectors sharded on the output-feature dim over 'model') and batch
-sharding over 'data', jit, and XLA inserts the all-reduce/all-gather
-collectives over ICI (SURVEY.md §5.8).
+Training is a float flax graph, so GSPMD partitions it: we annotate
+parameter shardings (quantized kernels and the following BN vectors
+sharded on the output-feature dim over 'model') and batch sharding over
+'data', jit, and XLA inserts the all-reduce/all-gather collectives
+(SURVEY.md §5.8).
 """
 
 from __future__ import annotations
@@ -80,9 +80,8 @@ def make_sharded_epoch_fn(config: NetworkConfig, mesh: Mesh, tx):
     """dp×tp analogue of trainer.make_epoch_fn: one jitted lax.scan over
     an epoch of batches with the batch dim sharded over 'data' and the
     GSPMD param shardings preserved through the carry — one dispatch per
-    epoch instead of one per step (the single-chip trainer measured
-    100-200× per-step dispatch overhead through a remote link; the same
-    pattern is how multi-host training avoids per-step host sync).
+    epoch instead of one per step (the same pattern is how multi-host
+    training avoids per-step host sync).
     Takes xs [steps, batch, ...], ys [steps, batch]."""
     from bnn_pynq_tpu.train.trainer import _make_raw_step
     model = QuantNet(config)

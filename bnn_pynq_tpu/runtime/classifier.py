@@ -6,7 +6,7 @@ Mirrors the reference's surface:
   `classify_image(s)`, `class_name`, `usecPerImage`, `classes` list.
 - `available_params(network)` lists artifact files on disk.
 - Runtime switch (HW vs bit-exact SW emulation) maps to the engine's
-  'tpu' / 'interpret' / 'ref' runtimes.
+  'device' / 'ref' runtimes.
 
 Accepts numpy uint8 arrays ([H,W,C], [H,W], or batches); PIL images are
 converted if PIL is importable (not required).

@@ -4,7 +4,7 @@ this; the north star's continuous-batching serving needs it).
 
 A `Frontend` owns several backends (one per host — locally these are
 BatchingServer instances; across real hosts they would wrap RPC stubs
-whose transport rides DCN). Requests round-robin over healthy backends;
+whose transport rides the data-center network). Requests round-robin over healthy backends;
 a heartbeat probe marks backends unhealthy, and requests in flight on a
 failed backend are transparently re-dispatched to the survivors.
 """
@@ -52,7 +52,7 @@ class HttpBackend:
     happens server-side, matching the reference's on-board
     preprocessing) and resolves the Future with the class index;
     `probe()` GETs /healthz (wire this as the BackendHandle probe). This
-    is the DCN transport leg the reference never had (single board) —
+    is the network transport leg the reference never had (single board) —
     SURVEY.md §5.3's multi-host path, stdlib-only on the client side.
 
     Hardened for the continuous-batching load profile (round-3, VERDICT
@@ -135,7 +135,7 @@ class HttpBackend:
 
     def reload(self, artifact_bytes: bytes) -> dict:
         """Hot-swap parameters on the remote host (POST /reload) —
-        zero-downtime weight rollout over DCN."""
+        zero-downtime weight rollout over the network."""
         import json
         return json.loads(self._request("POST", "/reload", artifact_bytes))
 

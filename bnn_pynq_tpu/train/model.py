@@ -21,12 +21,12 @@ from typing import Any
 import flax.linen as nn
 import jax.numpy as jnp
 
-from bnn_pynq_tpu.models.config import ConvSpec, NetworkConfig, PoolSpec
+from bnn_pynq_tpu.models.config import (BN_EPS, ConvSpec, NetworkConfig,
+                                        PoolSpec)
 from bnn_pynq_tpu.train.quant import quantize_activations, quantize_weights
 
-# Lasagne BatchNormLayer defaults (reference training stack): eps=1e-4,
-# alpha=0.1 ⇒ flax momentum=0.9.
-BN_EPS = 1e-4
+# Lasagne BatchNormLayer defaults (reference training stack): eps=1e-4
+# (models/config.BN_EPS), alpha=0.1 ⇒ flax momentum=0.9.
 BN_MOMENTUM = 0.9
 
 

@@ -7,17 +7,16 @@ Demonstrates (the C17 notebook analogue for the serving stack):
 - pipelined dispatch (batch t+1 launches while batch t's device fetch
   is in flight — pipeline_depth=2 default);
 - automatic packed-word transport for bipolar (MLP) engines
-  (32× smaller host→device transfer, measured 3.5× serving capacity);
+  (32× smaller host→device transfer);
 - oversized-request splitting (one giant request never forces a new
   jit bucket);
 - the stats surface (requests vs images vs batches, p50/p99);
-- the r5 latency tier (adaptive_wait: a lone request at an idle server
-  dispatches immediately instead of waiting out max_wait_ms — p50 at
-  10% load measured 1.27x the sync floor, docs/latency.md) and bucket
+- the latency tier (adaptive_wait: a lone request at an idle server
+  dispatches immediately instead of waiting out max_wait_ms) and bucket
   warmup (a warmed server never pays a first-request jit compile).
 
-Runs on whatever backend is available (TPU if present, else the
-interpret twin on CPU — same results either way, SURVEY.md §4.1).
+Runs on whatever backend JAX has (a GPU in production, the CPU in
+tests — same results either way, SURVEY.md §4.1).
 """
 
 import sys
@@ -52,8 +51,7 @@ def main():
     try:
         # single-image requests (the reference's `inference` contract).
         # generous first timeout: the first request compiles the jitted
-        # program, which can take minutes on a congested remote compile
-        # service (docs/session_variance.md)
+        # program
         img = rng.integers(0, 256, size=(1,) + shape).astype(np.uint8)
         one = server.submit(engine.prepare(img)[0]).result(600)
         print(f"single request -> class {one}")

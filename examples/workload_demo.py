@@ -2,7 +2,7 @@
 (SURVEY.md C17 «notebooks/CNV-BNN_Cifar10.ipynb» etc.): for one dataset,
 load the pretrained artifact, classify the test set, and print top-1
 accuracy, per-image latency, and the HW-vs-SW runtime comparison
-(tpu/interpret kernels vs the bit-exact `ref` software twin — the
+(the `device` runtime vs the bit-exact `ref` software twin — the
 RUNTIME_HW/RUNTIME_SW duality of «bnn/bnn.py»).
 
     python examples/workload_demo.py mnist     [--artifact ...]
@@ -51,28 +51,26 @@ def main():
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--limit", type=int, default=None,
                     help="evaluate only the first N test images")
-    ap.add_argument("--route", default="xla")
+    ap.add_argument("--route", default="s2d")
     args = ap.parse_args()
 
     from bnn_pynq_tpu.runtime.engine import InferenceEngine
     from bnn_pynq_tpu.train import data as data_mod
     from bnn_pynq_tpu.utils.baseline import baseline_top1
-    from bnn_pynq_tpu.ops.matmul import on_tpu
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     artifact = args.artifact or os.path.join(root,
                                              DEFAULT_ARTIFACTS[args.dataset])
     ds = data_mod.load(args.dataset)
 
-    fast_runtime = "tpu" if on_tpu() else "interpret"
     report = {"dataset": args.dataset, "artifact": artifact,
               "synthetic_data": ds.synthetic}
 
-    hw = InferenceEngine.from_artifact(artifact, runtime=fast_runtime,
+    hw = InferenceEngine.from_artifact(artifact, runtime="device",
                                        route=args.route,
                                        batch_buckets=(args.batch,))
     acc, usec, n = evaluate(hw, ds, args.batch, args.limit)
-    report["hw"] = {"runtime": fast_runtime, "top1": round(acc, 5),
+    report["hw"] = {"runtime": "device", "top1": round(acc, 5),
                     "usec_per_image": round(usec, 2), "n": n}
 
     sw = InferenceEngine.from_artifact(artifact, runtime="ref",

@@ -1,9 +1,9 @@
-// Native host runtime ops — the TPU-native analogue of the reference's
-// C++ host offload library (SURVEY.md C10 «bnn/src/library/host/
+// Native host runtime ops — the analogue of the reference's C++ host
+// offload library (SURVEY.md C10 «bnn/src/library/host/
 // foldedmv-offload.cpp»: binarizeAndPack / quantize+pack input images,
 // output argmax, buffer plumbing). These run on the host CPU feeding the
-// TPU engine: image preprocessing and bit-packing at serving rates is
-// host-side work in this design (the TPU-side packing lives in XLA ops).
+// device engine: image preprocessing and bit-packing at serving rates is
+// host-side work in this design (device-side unpacking lives in XLA ops).
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 in this image).
 // All batch entry points are multithreaded over images.

@@ -83,7 +83,7 @@ def test_gate_all_trains_and_gates_on_real_data(tmp_path, capsys,
     with pytest.raises(SystemExit):
         main(["gate-all", "--train", "--epochs", "1", "--batch", "32",
               "--artifacts", str(tmp_path / "arts"),
-              "--runtime", "interpret"])
+              "--runtime", "device"])
     rows = {r["network"]: r for r in
             (json.loads(l) for l in
              capsys.readouterr().out.strip().splitlines())

@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
+from bnn_pynq_tpu.models.network import _conv_bf16_exact
 from bnn_pynq_tpu.ops import packing, ref
-from bnn_pynq_tpu.ops.conv import (conv2d_packed, conv_weight_matrix,
-                                   maxpool2d, maxpool2d_packed_or,
-                                   sliding_window)
+from bnn_pynq_tpu.ops.conv import (conv_weight_matrix, maxpool2d,
+                                   maxpool2d_packed_or, sliding_window)
 from bnn_pynq_tpu.ops.thresholds import multithreshold
 
 
@@ -35,38 +35,30 @@ def test_sliding_window_stride2(rng):
     np.testing.assert_array_equal(acc.reshape(b, oh, ow, 4), golden)
 
 
-@pytest.mark.parametrize("route", ["mxu", "mxu_rm", "vpu"])
-def test_conv2d_packed_w1a1(rng, route):
-    b, h, w_, cin, cout = 2, 10, 10, 32, 64
-    codes = rng.integers(0, 2, size=(b, h, w_, cin)).astype(np.int8)
-    wv = rng.choice([-1, 1], size=(3, 3, cin, cout)).astype(np.int8)
-    x_lev = (2 * codes - 1).astype(np.int8)
-    golden_acc = np.asarray(ref.conv2d_int_ref(x_lev, wv))
-    wmat = np.asarray(conv_weight_matrix(wv))
-    w_packed = packing.np_pack_bits(wmat, axis=0)
-    out = conv2d_packed(jnp.asarray(codes), jnp.asarray(w_packed),
-                        kernel=3, bits=1, route=route)
-    np.testing.assert_array_equal(np.asarray(out), golden_acc)
-    # fused thresholds
-    thr = np.sort(rng.integers(-50, 50, size=(1, cout)), axis=0).astype(np.int32)
-    golden_codes = np.asarray(multithreshold(golden_acc, thr))
-    out_c = conv2d_packed(jnp.asarray(codes), jnp.asarray(w_packed),
-                          jnp.asarray(thr), kernel=3, bits=1, route=route)
-    np.testing.assert_array_equal(np.asarray(out_c), golden_codes)
-
-
-def test_conv2d_packed_2bit(rng):
-    b, h, w_, cin, cout = 1, 6, 6, 8, 16
-    codes = rng.integers(0, 4, size=(b, h, w_, cin)).astype(np.int8)
-    wcodes = rng.integers(0, 4, size=(3, 3, cin, cout)).astype(np.int8)
-    x_lev = (2 * codes - 3).astype(np.int8)
-    w_lev = (2 * wcodes - 3).astype(np.int8)
-    golden = np.asarray(ref.conv2d_int_ref(x_lev, w_lev))
-    wmat = np.asarray(conv_weight_matrix(wcodes))
-    w_packed = packing.np_pack_codes2(wmat, axis=0)
-    out = conv2d_packed(jnp.asarray(codes), jnp.asarray(w_packed),
-                        kernel=3, bits=2, route="mxu")
-    np.testing.assert_array_equal(np.asarray(out), golden)
+@pytest.mark.parametrize("levels,wlevels,shape,stride", [
+    # CNV conv1: raw int8 images × ±1 or 2-bit weights, K=27
+    ((-128, 127), (-1, 1), (2, 12, 12, 3, 64), 1),
+    ((-128, 127), (-3, -1, 1, 3), (2, 12, 12, 3, 64), 1),
+    # later convs: 2-bit activations × 2-bit weights at CNV's widest K
+    ((-3, -1, 1, 3), (-3, -1, 1, 3), (1, 5, 5, 256, 32), 1),
+    ((-1, 1), (-1, 1), (1, 9, 9, 64, 16), 2),
+])
+def test_conv_bf16_exact(rng, levels, wlevels, shape, stride):
+    """The xlaconv route's bf16 convolution with float32 accumulation is
+    integer-exact at the extremes of every layer's value range."""
+    b, h, w_, cin, cout = shape
+    if len(levels) == 2:
+        x = rng.integers(levels[0], levels[1] + 1,
+                         size=(b, h, w_, cin)).astype(np.int8)
+        x.flat[:3] = [levels[0], levels[1], levels[0]]
+    else:
+        x = rng.choice(levels, size=(b, h, w_, cin)).astype(np.int8)
+    wv = rng.choice(wlevels, size=(3, 3, cin, cout)).astype(np.int8)
+    golden = np.asarray(ref.conv2d_int_ref(x, wv, stride=stride))
+    got = np.asarray(_conv_bf16_exact(jnp.asarray(x), jnp.asarray(wv),
+                                      stride))
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, golden)
 
 
 def test_maxpool_codes_equals_or_on_packed(rng):

@@ -119,22 +119,6 @@ def test_reblock_4to2_exact():
     np.testing.assert_array_equal(np.asarray(got.codes), np.asarray(want))
 
 
-@pytest.mark.skipif(
-    __import__("jax").default_backend() == "cpu",
-    reason="int4 dot is MXU-only (XLA CPU rejects sub-byte converts)")
-def test_conv_s2d_int4_cast_exact():
-    rng = np.random.default_rng(7)
-    vals = rng.choice([-3, -1, 1, 3], size=(2, 14, 14, 32)).astype(np.int8)
-    w = rng.integers(-3, 4, size=(3, 3, 32, 64)).astype(np.int8)
-    t = np.sort(rng.integers(-50, 50, size=(3, 64)), 0).astype(np.int32)
-    got = conv_s2d_blocked(jnp.asarray(vals), jnp.asarray(w),
-                           jnp.asarray(t), s=2, acc_dtype=jnp.int4)
-    want = conv_s2d_blocked(jnp.asarray(vals), jnp.asarray(w),
-                            jnp.asarray(t), s=2)
-    np.testing.assert_array_equal(np.asarray(got.codes),
-                                  np.asarray(want.codes))
-
-
 def test_pick_s2d_block_policy():
     assert pick_s2d_block(3, 64, 30, 30, 3, 1) == 4      # conv1
     assert pick_s2d_block(64, 64, 28, 28, 3, 1) == 2     # conv2

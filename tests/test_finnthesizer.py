@@ -98,17 +98,6 @@ def test_float_vs_integer_engine(make_cfg, wbits, abits):
     np.testing.assert_array_equal(int_logits.argmax(-1), float_logits.argmax(-1))
 
 
-def test_pallas_runtime_matches_ref_runtime():
-    cfg = mini_cnv(1, 1)
-    model, params, stats = init_perturbed(cfg, seed=5)
-    rng = np.random.default_rng(1)
-    x_uint8, _ = _inputs(cfg, rng, b=4)
-    compiled = compile_network(cfg, params, stats)
-    e_ref = InferenceEngine(compiled, runtime="ref")
-    e_pl = InferenceEngine(compiled, runtime="interpret", route="mxu")
-    np.testing.assert_array_equal(e_ref.logits(x_uint8), e_pl.logits(x_uint8))
-
-
 @pytest.mark.parametrize("make_cfg,wbits,abits", [
     (mini_mlp, 1, 1), (mini_cnv, 1, 2), (mini_cnv, 2, 2),
 ])
@@ -119,7 +108,7 @@ def test_xla_route_matches_ref_runtime(make_cfg, wbits, abits):
     x_uint8, _ = _inputs(cfg, rng, b=8)
     compiled = compile_network(cfg, params, stats)
     e_ref = InferenceEngine(compiled, runtime="ref")
-    e_xla = InferenceEngine(compiled, runtime="interpret", route="xla")
+    e_xla = InferenceEngine(compiled, runtime="device", route="xla")
     np.testing.assert_array_equal(e_ref.logits(x_uint8), e_xla.logits(x_uint8))
 
 
@@ -135,21 +124,8 @@ def test_xlaconv_route_matches_ref_runtime(make_cfg, wbits, abits):
     x_uint8, _ = _inputs(cfg, rng, b=8)
     compiled = compile_network(cfg, params, stats)
     e_ref = InferenceEngine(compiled, runtime="ref")
-    e_nc = InferenceEngine(compiled, runtime="interpret", route="xlaconv")
+    e_nc = InferenceEngine(compiled, runtime="device", route="xlaconv")
     np.testing.assert_array_equal(e_ref.logits(x_uint8), e_nc.logits(x_uint8))
-
-
-@pytest.mark.parametrize("wbits,abits", [(1, 1), (1, 2)])
-def test_fused_mlp_route_matches_ref(wbits, abits):
-    cfg = mini_mlp(wbits, abits)
-    model, params, stats = init_perturbed(cfg, seed=8)
-    rng = np.random.default_rng(4)
-    x_uint8, _ = _inputs(cfg, rng, b=10)
-    compiled = compile_network(cfg, params, stats)
-    e_ref = InferenceEngine(compiled, runtime="ref")
-    e_fused = InferenceEngine(compiled, runtime="interpret", route="fused")
-    np.testing.assert_allclose(e_fused.logits(x_uint8), e_ref.logits(x_uint8),
-                               rtol=1e-6, atol=1e-6)
 
 
 def test_artifact_roundtrip(tmp_path):

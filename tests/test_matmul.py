@@ -1,108 +1,131 @@
-"""Pallas packed matmul vs dense golden reference (SURVEY.md §4.1/§7 step 2).
+"""The decoded quantized layer (the production MVTU, SURVEY.md C1+C4) vs a
+numpy oracle on the packed words.
 
-Runs on CPU in interpret mode; the same code path compiles for TPU.
+The production path decodes packed weights once to int8 levels
+(`decode_params`), runs an int8 dot with int32 accumulation
+(`int_matmul_ref`) and thresholds the result (`multithreshold`). The
+oracle never decodes: for 1-bit operands the ±1 dot is
+K − 2·popcount(a XOR w) on the packed words themselves (pad bits are zero
+in both operands, so they never differ).
 """
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 
+from bnn_pynq_tpu.models.config import DenseSpec, NetworkConfig
+from bnn_pynq_tpu.models.network import decode_params
 from bnn_pynq_tpu.ops import packing, ref
-from bnn_pynq_tpu.ops.matmul import packed_matmul, packed_matmul_padded
-from bnn_pynq_tpu.ops.thresholds import multithreshold, THR_NEVER
+from bnn_pynq_tpu.ops.thresholds import (THR_NEVER, codes_to_values,
+                                         multithreshold)
 
 
-def _random_w1a1(rng, m, k, n):
+def _decoded_layer(a_codes, w_packed, k, wbits, abits, thr=None):
+    """One dense layer through decode_params + int_matmul_ref (+
+    multithreshold when thr is given)."""
+    n = w_packed.shape[1]
+    cfg = NetworkConfig("one-dense", wbits=wbits, abits=abits,
+                        input_kind="bipolar", input_shape=(1, 1, k),
+                        layers=(DenseSpec(n),), num_classes=n)
+    (layer,) = decode_params(cfg, [{"w_packed": w_packed}])
+    acc = ref.int_matmul_ref(codes_to_values(a_codes, abits),
+                             layer["w_int8"])
+    return np.asarray(acc if thr is None else multithreshold(acc, thr))
+
+
+def _popcount_oracle(a_words, w_words, k):
+    """K − 2·popcount(a XOR w) for every (row, column) of packed words."""
+    x = a_words[:, :, None] ^ w_words[None, :, :]          # [M, Kw, N]
+    bits = np.unpackbits(x[..., None].view(np.uint8), axis=-1)
+    return k - 2 * bits.sum(axis=(1, 3), dtype=np.int64)
+
+
+def _w1a1(rng, m, k, n):
     a = rng.choice([-1, 1], size=(m, k)).astype(np.int8)
     w = rng.choice([-1, 1], size=(k, n)).astype(np.int8)
     return a, w
 
 
-def _random_codes(rng, m, k, n, w_binary):
-    a_codes = rng.integers(0, 4, size=(m, k)).astype(np.int8)
-    if w_binary:
-        w_codes = rng.choice([1, 2], size=(k, n)).astype(np.int8)  # levels ±1
-    else:
-        w_codes = rng.integers(0, 4, size=(k, n)).astype(np.int8)
-    return a_codes, w_codes
+@pytest.mark.parametrize("m,k,n", [
+    (128, 256, 128), (128, 100, 128), (256, 784, 256),   # MLP shapes
+    (1, 27, 64), (7, 576, 64), (33, 1152, 256),          # CNV conv K
+    (5, 2304, 256), (64, 1024, 10), (3, 31, 3),          # tail, odd K
+])
+def test_w1a1_acc_exact(rng, m, k, n):
+    a, w = _w1a1(rng, m, k, n)
+    a_words = packing.np_pack_bits(a, axis=-1)
+    w_words = packing.np_pack_bits(w, axis=0)
+    want = _popcount_oracle(a_words, w_words, k)
+    codes = (a > 0).astype(np.int8)
+    got = _decoded_layer(codes, w_words, k, 1, 1)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    # the oracle itself agrees with the plain ±1 dot
+    np.testing.assert_array_equal(want, a.astype(np.int64) @ w)
 
 
-@pytest.mark.parametrize("route", ["mxu", "mxu_rm", "vpu"])
-@pytest.mark.parametrize("m,k,n", [(128, 256, 128), (128, 100, 128),
-                                   (256, 784, 256)])
-def test_w1a1_acc_exact(rng, route, m, k, n):
-    a, w = _random_w1a1(rng, m, k, n)
-    golden = np.asarray(ref.binary_matmul_ref(a, w))
-    a_p = packing.pack_bits(a, axis=-1)
-    w_p = packing.pack_bits(w, axis=0)
-    out = packed_matmul(a_p, w_p, k=k, bits=1, route=route)
-    np.testing.assert_array_equal(np.asarray(out), golden)
-
-
-@pytest.mark.parametrize("route", ["mxu", "mxu_rm", "vpu"])
-def test_w1a1_threshold_fused(rng, route):
-    m, k, n = 128, 200, 128
-    a, w = _random_w1a1(rng, m, k, n)
-    acc = np.asarray(ref.binary_matmul_ref(a, w))
+@pytest.mark.parametrize("k", [64, 200, 1024])
+def test_w1a1_threshold_fused(rng, k):
+    m, n = 96, 128
+    a, w = _w1a1(rng, m, k, n)
     thr = np.sort(rng.integers(-k, k, size=(1, n)), axis=0).astype(np.int32)
-    golden = np.asarray(multithreshold(acc, thr))
-    a_p = packing.pack_bits(a, axis=-1)
-    w_p = packing.pack_bits(w, axis=0)
-    codes = packed_matmul(a_p, w_p, jnp.asarray(thr), k=k, bits=1, route=route)
-    assert codes.dtype == jnp.int8
-    np.testing.assert_array_equal(np.asarray(codes), golden)
+    a_words = packing.np_pack_bits(a, axis=-1)
+    w_words = packing.np_pack_bits(w, axis=0)
+    want = (_popcount_oracle(a_words, w_words, k) >= thr[0]).astype(np.int8)
+    got = _decoded_layer((a > 0).astype(np.int8), w_words, k, 1, 1, thr)
+    assert got.dtype == np.int8
+    np.testing.assert_array_equal(got, want)
+
+
+def _codes2(rng, m, k, n, w_binary):
+    a = rng.integers(0, 4, size=(m, k)).astype(np.int8)
+    w = (rng.choice([1, 2], size=(k, n)) if w_binary
+         else rng.integers(0, 4, size=(k, n))).astype(np.int8)
+    return a, w
 
 
 @pytest.mark.parametrize("w_binary", [True, False])
 def test_2bit_acc_exact(rng, w_binary):
-    # W1A2 (binary weights stored as 2-bit codes) and W2A2.
+    # W1A2 (binary weights stored as 2-bit codes) and W2A2
     m, k, n = 128, 150, 128
-    a_codes, w_codes = _random_codes(rng, m, k, n, w_binary)
-    a_lev = packing.codes2_to_levels(a_codes)
-    w_lev = packing.codes2_to_levels(w_codes)
-    golden = np.asarray(ref.int_matmul_ref(a_lev, w_lev))
-    a_p = packing.pack_codes2(a_codes, axis=-1)
-    w_p = packing.pack_codes2(w_codes, axis=0)
-    out = packed_matmul(a_p, w_p, k=k, bits=2, route="mxu")
-    np.testing.assert_array_equal(np.asarray(out), golden)
+    a, w = _codes2(rng, m, k, n, w_binary)
+    want = (2 * a.astype(np.int64) - 3) @ (2 * w.astype(np.int64) - 3)
+    got = _decoded_layer(a, packing.np_pack_codes2(w, axis=0), k,
+                         1 if w_binary else 2, 2)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_2bit_threshold_fused(rng):
     m, k, n = 128, 90, 128
-    a_codes, w_codes = _random_codes(rng, m, k, n, w_binary=False)
-    a_lev = packing.codes2_to_levels(a_codes)
-    w_lev = packing.codes2_to_levels(w_codes)
-    acc = np.asarray(ref.int_matmul_ref(a_lev, w_lev))
-    thr = np.sort(rng.integers(-3 * k, 3 * k, size=(3, n)), axis=0).astype(np.int32)
-    golden = np.asarray(multithreshold(acc, thr))
-    a_p = packing.pack_codes2(a_codes, axis=-1)
-    w_p = packing.pack_codes2(w_codes, axis=0)
-    codes = packed_matmul(a_p, w_p, jnp.asarray(thr), k=k, bits=2, route="mxu")
-    np.testing.assert_array_equal(np.asarray(codes), golden)
+    a, w = _codes2(rng, m, k, n, w_binary=False)
+    acc = (2 * a.astype(np.int64) - 3) @ (2 * w.astype(np.int64) - 3)
+    thr = np.sort(rng.integers(-3 * k, 3 * k, size=(3, n)),
+                  axis=0).astype(np.int32)
+    want = sum((acc >= thr[t]).astype(np.int8) for t in range(3))
+    got = _decoded_layer(a, packing.np_pack_codes2(w, axis=0), k, 2, 2, thr)
+    np.testing.assert_array_equal(got, want)
 
 
-def test_padded_wrapper_arbitrary_m(rng):
+def test_arbitrary_m(rng):
     m, k, n = 37, 64, 128
-    a, w = _random_w1a1(rng, m, k, n)
-    golden = np.asarray(ref.binary_matmul_ref(a, w))
-    a_p = packing.pack_bits(a, axis=-1)
-    w_p = packing.pack_bits(w, axis=0)
-    out = packed_matmul_padded(a_p, w_p, k=k, bits=1)
-    assert out.shape == (m, n)
-    np.testing.assert_array_equal(np.asarray(out), golden)
+    a, w = _w1a1(rng, m, k, n)
+    w_words = packing.np_pack_bits(w, axis=0)
+    got = _decoded_layer((a > 0).astype(np.int8), w_words, k, 1, 1)
+    assert got.shape == (m, n)
+    np.testing.assert_array_equal(
+        got, _popcount_oracle(packing.np_pack_bits(a, axis=-1), w_words, k))
 
 
 def test_padded_n_columns_with_sentinel_thresholds(rng):
-    # Simulate artifact padding: N=10 classes padded to 128 columns.
+    # artifact padding: N=10 classes padded to 128 columns whose
+    # THR_NEVER sentinel must never fire
     m, k, n_true, n_pad = 128, 64, 10, 128
-    a, w = _random_w1a1(rng, m, k, n_true)
-    w_full = np.zeros((k, n_pad), dtype=np.int8)
+    a, w = _w1a1(rng, m, k, n_true)
+    w_full = np.ones((k, n_pad), dtype=np.int8)
     w_full[:, :n_true] = w
     thr = np.full((1, n_pad), THR_NEVER, dtype=np.int32)
     thr[0, :n_true] = 0
-    a_p = packing.pack_bits(a, axis=-1)
-    w_p = packing.pack_bits(w_full, axis=0)
-    codes = np.asarray(packed_matmul(a_p, w_p, jnp.asarray(thr), k=k, bits=1))
-    assert (codes[:, n_true:] == 0).all()
-    golden_acc = np.asarray(ref.binary_matmul_ref(a, w))
-    np.testing.assert_array_equal(codes[:, :n_true], (golden_acc >= 0).astype(np.int8))
+    got = _decoded_layer((a > 0).astype(np.int8),
+                         packing.np_pack_bits(w_full, axis=0), k, 1, 1, thr)
+    assert (got[:, n_true:] == 0).all()
+    np.testing.assert_array_equal(
+        got[:, :n_true], (a.astype(np.int64) @ w >= 0).astype(np.int8))

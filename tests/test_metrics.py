@@ -2,10 +2,14 @@
 
 import json
 
+import pytest
+
 from bnn_pynq_tpu.models import get_config
 from bnn_pynq_tpu.utils.metrics import (RunMetrics, chip_specs,
-                                        mxu_roofline_images_per_sec,
+                                        int8_roofline_images_per_sec,
                                         network_macs, roofline_fraction)
+
+H100 = "NVIDIA H100 80GB HBM3"
 
 
 def test_network_macs_cnv_exact():
@@ -21,9 +25,34 @@ def test_network_macs_lfc():
 
 def test_roofline_positive():
     cfg = get_config("cnv-w1a1")
-    sol = mxu_roofline_images_per_sec(cfg, chip_specs("v5e"))
-    assert sol > 1e6  # v5e speed-of-light for CNV is ~3.3M img/s
-    assert 0 < roofline_fraction(cfg, sol / 2, chip_specs("v5e")) <= 0.51
+    chip = chip_specs(H100)
+    sol = int8_roofline_images_per_sec(cfg, chip)
+    # 1979e12 int8 ops/s over 2 * 59.46M MACs per image
+    assert sol == pytest.approx(1979e12 / (2 * 59_461_376))
+    assert 0 < roofline_fraction(cfg, sol / 2, chip) <= 0.51
+
+
+def test_h100_row_has_datasheet_peaks():
+    chip = chip_specs(H100)
+    assert chip.device_kind == H100
+    assert chip.int8_ops_per_sec == 1979e12
+    assert chip.bf16_flops_per_sec == 989e12
+    assert chip.hbm_bytes_per_sec == 3.35e12
+    assert "data sheet" in chip.source
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA H100 PCIe", "NVIDIA A100-SXM4-80GB",
+                                  ""])
+def test_unknown_device_kind_raises(kind):
+    with pytest.raises(KeyError, match="no peak rates"):
+        chip_specs(kind)
+
+
+def test_default_device_kind_is_the_jax_device():
+    # the test backend is the CPU, which has no row: the default lookup
+    # must raise rather than fall back to some other chip's peaks
+    with pytest.raises(KeyError, match="cpu"):
+        chip_specs()
 
 
 def test_run_metrics_emit(tmp_path):
@@ -32,43 +61,3 @@ def test_run_metrics_emit(tmp_path):
     payload = json.loads(line)
     assert payload["a"] == 1.5 and payload["run"] == "test"
     assert (tmp_path / "metrics.jsonl").exists()
-
-
-def test_mlp_median_aggregation(tmp_path, monkeypatch, capsys):
-    """tools/mlp_median.py groups multi-window rows, takes the median,
-    reports cross-window spread, and only marks quotable with enough
-    windows (the r5 headline-hygiene mechanism)."""
-    import json
-    import sys
-    sys.path.insert(0, str(tmp_path))  # not needed, just path safety
-    import tools.mlp_median as mm
-
-    path = tmp_path / "perf.jsonl"
-    rows = [
-        # three windows of one row (img/s 10, 30, 20 -> median 20)
-        {"network": "n", "route": "xla", "batch": 8, "path": "classify",
-         "images_per_sec": v, "spread": 0.01, "tag": f"t-w{i}",
-         "verify_ok": True}
-        for i, v in enumerate([10.0, 30.0, 20.0])
-    ] + [
-        # a single-window row of another group: not quotable
-        {"network": "m", "route": "xla", "batch": 8, "path": "classify",
-         "images_per_sec": 5.0, "spread": 0.0, "tag": "t-w0",
-         "verify_ok": True},
-        # unrelated tag: ignored
-        {"network": "n", "route": "xla", "batch": 8, "path": "classify",
-         "images_per_sec": 999.0, "spread": 0.0, "tag": "other"},
-    ]
-    with open(path, "w") as f:
-        for r in rows:
-            f.write(json.dumps(r) + "\n")
-    monkeypatch.setattr(sys, "argv", [
-        "mlp_median.py", "--tag-prefix", "t-w", "--min-windows", "3",
-        "--path", str(path), "--out-tag", "agg"])
-    mm.main()
-    out = [json.loads(l) for l in open(path) if l.strip()]
-    agg = {r["network"]: r for r in out if r.get("tag") == "agg"}
-    assert agg["n"]["images_per_sec_median"] == 20.0
-    assert agg["n"]["n_windows"] == 3 and agg["n"]["quotable"]
-    assert agg["n"]["window_spread"] == round((30 - 10) / 20.0, 3)
-    assert agg["m"]["n_windows"] == 1 and not agg["m"]["quotable"]

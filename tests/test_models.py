@@ -1,15 +1,10 @@
-"""Full-network forward: Pallas impl ≡ golden software twin, per config.
-
-This is the rebuild's version of the reference's HW/SW runtime
-interchangeability (SURVEY.md §4.1): any divergence localizes bugs to the
-Pallas kernel layer.
-"""
+"""Network plans and the golden reference forward (SURVEY.md §4.1). The
+production path is checked against this forward per config and route in
+tests/test_routes.py."""
 
 import numpy as np
-import jax.numpy as jnp
-import pytest
 
-from bnn_pynq_tpu.models import get_config, cnv
+from bnn_pynq_tpu.models import get_config
 from bnn_pynq_tpu.models.network import (forward, init_random_params,
                                          make_plan)
 
@@ -35,35 +30,12 @@ def test_plan_shapes_cnv():
     assert conv_ks == [27, 576, 576, 1152, 1152, 2304]
 
 
-@pytest.mark.parametrize("name", ["sfc-w1a1", "sfc-w1a2", "lfc-w1a1"])
-def test_mlp_pallas_matches_ref(rng, name):
-    cfg = get_config(name)
-    params = init_random_params(cfg, seed=7)
-    x = _bipolar_batch(rng, 4)
-    ref_logits = np.asarray(forward(cfg, params, x, impl="ref"))
-    pl_logits = np.asarray(forward(cfg, params, x, impl="pallas"))
-    assert ref_logits.shape == (4, 10)
-    assert ref_logits.dtype == np.int32
-    np.testing.assert_array_equal(pl_logits, ref_logits)
-
-
-@pytest.mark.parametrize("name", ["cnv-w1a1", "cnv-w1a2", "cnv-w2a2"])
-def test_cnv_pallas_matches_ref(rng, name):
-    cfg = get_config(name)
-    params = init_random_params(cfg, seed=3)
-    x = _image_batch(rng, 2, cfg.input_shape)
-    ref_logits = np.asarray(forward(cfg, params, x, impl="ref"))
-    pl_logits = np.asarray(forward(cfg, params, x, impl="pallas"))
-    assert ref_logits.shape == (2, cfg.num_classes)
-    np.testing.assert_array_equal(pl_logits, ref_logits)
-
-
 def test_gtsrb_classes():
     cfg = get_config("cnv-w2a2-gtsrb")
     params = init_random_params(cfg, seed=1)
     rng = np.random.default_rng(0)
     x = _image_batch(rng, 1, cfg.input_shape)
-    logits = np.asarray(forward(cfg, params, x, impl="ref"))
+    logits = np.asarray(forward(cfg, params, x))
     assert logits.shape == (1, 43)
 
 
@@ -71,9 +43,10 @@ def test_forward_is_jittable():
     import jax
     cfg = get_config("sfc-w1a1")
     params = init_random_params(cfg, seed=0)
-    fn = jax.jit(lambda p, x: forward(cfg, p, x, impl="pallas"))
+    fn = jax.jit(lambda p, x: forward(cfg, p, x))
     rng = np.random.default_rng(0)
     x = _bipolar_batch(rng, 8)
     out = np.asarray(fn(params, x))
-    base = np.asarray(forward(cfg, params, x, impl="ref"))
+    base = np.asarray(forward(cfg, params, x))
+    assert out.shape == (8, 10) and out.dtype == np.int32
     np.testing.assert_array_equal(out, base)

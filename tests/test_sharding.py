@@ -144,3 +144,24 @@ def test_sharded_epoch_scan_matches_stepwise():
     for a, b in zip(flat_a, flat_b):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(6, 16), (2, 5, 5, 8)])
+def test_gather_channels_matches_tiled_all_gather(shape):
+    """gather_channels is the tiled minor-axis all-gather, shards in
+    device order, built from a leading-axis gather + transpose."""
+    from jax.sharding import PartitionSpec as P
+    from bnn_pynq_tpu.parallel.mesh import gather_channels
+    mesh = make_mesh(data=2, model=4)
+    x = np.arange(np.prod(shape), dtype=np.int32).reshape(shape)
+    spec = P("data", *([None] * (len(shape) - 2)), "model")
+
+    def both(xl):
+        want = jax.lax.all_gather(xl, "model", axis=xl.ndim - 1, tiled=True)
+        return gather_channels(xl), want
+
+    got, want = jax.jit(jax.shard_map(
+        both, mesh=mesh, in_specs=(spec,), out_specs=(P("data"), P("data")),
+        check_vma=False))(x)
+    np.testing.assert_array_equal(np.asarray(got), x)
+    np.testing.assert_array_equal(np.asarray(want), x)

@@ -8,7 +8,7 @@ Trains the full CNV-W1A1 topology (6 convs + 3 dense, STE binarization,
 hinge loss, Adam + exp decay, weight clip — train/trainer.py) on the
 deterministic synthetic CIFAR stand-in, then compiles the result and
 checks the engine twin agrees with the training-graph eval. Appends the
-per-epoch loss/val curve to perf_results/cnv_train_curve.jsonl —
+per-epoch loss/val curve to chiprun_out/cnv_train_curve.jsonl —
 CLEARLY MARKED synthetic; this is a stability/plumbing proof, not an
 accuracy claim. Ref: «bnn/src/training/cifar10.py» full-size recipe.
 """
@@ -29,7 +29,7 @@ def main():
     ap.add_argument("--n-train", type=int, default=16384)
     ap.add_argument("--n-test", type=int, default=2048)
     ap.add_argument("--batch-size", type=int, default=64)
-    ap.add_argument("--out", default="perf_results/cnv_train_curve.jsonl")
+    ap.add_argument("--out", default="chiprun_out/cnv_train_curve.jsonl")
     args = ap.parse_args()
 
     from bnn_pynq_tpu.compiler import compile_network
@@ -54,7 +54,7 @@ def main():
     compiled = compile_network(cfg, result.params, result.batch_stats,
                                meta={"data": "synthetic-drill",
                                      "val_acc": result.best_val_acc})
-    eng = InferenceEngine(compiled, runtime="auto", route="s2d",
+    eng = InferenceEngine(compiled, route="s2d",
                           batch_buckets=(256,))
     pred = eng.classify(ds.x_test[:256])
     eng_acc = float((pred == ds.y_test[:256]).mean())
